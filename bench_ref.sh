@@ -9,7 +9,7 @@ if [ ! -x build-ref/PgRC ]; then
   (cd build-ref && cmake /root/reference -DCMAKE_BUILD_TYPE=Release >/dev/null && make -j2 PgRC)
 fi
 N=${PGRC_BENCH_READS:-200000}
-TMP=${PGRC_BENCH_TMP:-/tmp/pgrc_bench}
+TMP=${PGRC_BENCH_TMP:-$PWD/bench_data}
 mkdir -p "$TMP"
 SRC="$TMP/bench_${N}.fastq"
 if [ ! -f "$SRC" ]; then
@@ -18,7 +18,7 @@ import os, sys
 sys.path.insert(0, os.path.dirname(os.path.abspath("bench.py")))
 import bench
 n = int(os.environ.get("PGRC_BENCH_READS", 200000))
-tmp = os.environ.get("PGRC_BENCH_TMP", "/tmp/pgrc_bench")
+tmp = os.environ["PGRC_BENCH_TMP"]
 bench.synth_fastq(os.path.join(tmp, f"bench_{n}.fastq"), n, 100, max(n*100//40, 200000), seed=7)
 EOF
 fi

@@ -1,8 +1,9 @@
-"""100M-read scaling anchor (BASELINE.md item 5).
+"""100M-read scaling anchor (BASELINE.md; ROADMAP reach item 1).
 
 Generates a 100M x 100 bp WGS-like FASTQ (vectorized, fixed-width
 headers), encodes it (wall time, peak RSS, bits/base), decodes, and
-validates with the streaming validator. Prints one JSON line.
+validates with the streaming validator. Prints one JSON line naming the
+device the encode ran on.
 
 Usage: python exp_100m.py [gen|encode|decode|all]
 """
@@ -17,14 +18,16 @@ import numpy as np
 
 N = int(os.environ.get("PGRC_100M_READS", 100_000_000))
 L = 100
-tmp = os.environ.get("PGRC_BENCH_TMP", "/tmp/pgrc_bench")
+from bench import bench_dir  # noqa: E402
+
+tmp = bench_dir()
 src = os.path.join(tmp, f"anchor_{N}.fastq")
 out = os.path.join(tmp, "anchor.pgtc")
 
 
 def generate():
     """Vectorized chunked writer: fixed 216-byte records."""
-    from pgrc_tpu.utils import dna
+    from pgrc.utils import dna
 
     rng = np.random.default_rng(17)
     glen = N * L // 40
@@ -64,14 +67,16 @@ def generate():
 
 
 def encode():
-    from pgrc_tpu.archive import encoder as enc
-    from pgrc_tpu.config import PgRCParams
+    from pgrc.archive import encoder as enc
+    from pgrc.config import PgRCParams
+    from pgrc.device import describe
 
     t0 = time.time()
     s = enc.encode(PgRCParams(src_fastq=src, output=out))
     dt = time.time() - t0
     bases = s.reads_total * s.read_len
     return {
+        "device": describe(),
         "reads": s.reads_total,
         "encode_s": round(dt, 1),
         "encode_mbases_s": round(bases / 1e6 / dt, 2),
@@ -84,7 +89,7 @@ def encode():
 
 
 def decode_validate():
-    from pgrc_tpu.archive import decoder
+    from pgrc.archive import decoder
 
     t0 = time.time()
     rep = decoder.validate(out, src)

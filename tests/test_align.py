@@ -1,7 +1,7 @@
 import numpy as np
 
-from pgrc_tpu.align import matcher
-from pgrc_tpu.core import packed
+from pgrc.align import matcher
+from pgrc.core import packed
 
 
 def make_pg_and_reads(n_reads, read_len, pg_len, n_mis, seed=0, rc_frac=0.3):
@@ -73,7 +73,7 @@ def test_wide_probe_equivalent():
     """The wide (i64 position) probe variant must produce identical matches
     to the standard i32 path (pg-config.h:39-44 widening analog)."""
     import numpy as np
-    from pgrc_tpu.align import matcher as am
+    from pgrc.align import matcher as am
 
     rng = np.random.default_rng(5)
     pg = rng.integers(0, 4, size=20000).astype(np.uint8)
@@ -97,7 +97,7 @@ def test_blocked_index_probe():
     block boundaries may pick a different equal-quality position, so the
     check is on match quality, not position identity."""
     import numpy as np
-    from pgrc_tpu.align import matcher as am
+    from pgrc.align import matcher as am
 
     rng = np.random.default_rng(6)
     pg = rng.integers(0, 4, size=20000).astype(np.uint8)
@@ -111,7 +111,7 @@ def test_blocked_index_probe():
                         index_block=512)  # ~10 blocks of the 5k-entry index
     assert (r2.mis != 255).mean() >= (r1.mis != 255).mean() - 0.01
     # every blocked match must verify exactly
-    from pgrc_tpu.core import packed as pk
+    from pgrc.core import packed as pk
     for i in np.nonzero(r2.mis != 255)[0][:100]:
         win = pg[r2.pos[i] : r2.pos[i] + 80]
         dec = win if not r2.rc[i] else pk.revcomp_codes_matrix(win[None])[0]
@@ -123,7 +123,7 @@ def test_burst_error_rescue():
     must still match via the interleaved rescue pass (the
     InterleavedReadsApproxMatcher insurance role)."""
     import numpy as np
-    from pgrc_tpu.align import matcher as am
+    from pgrc.align import matcher as am
 
     rng = np.random.default_rng(7)
     # repeat-heavy pg: tandem copies of a short unit plus unique flanks
@@ -147,7 +147,7 @@ def test_burst_error_rescue():
     # matches must be honest: reconstructable within the mismatch budget
     ok = np.nonzero(res.pos >= 0)[0]
     win = pg[res.pos[ok, None] + np.arange(L)[None, :]]
-    from pgrc_tpu.core import packed as pk
+    from pgrc.core import packed as pk
     rr = reads[ok].copy()
     rc = res.rc[ok]
     rr[rc] = pk.revcomp_codes_matrix(rr[rc])

@@ -10,9 +10,9 @@ import os
 import numpy as np
 import pytest
 
-from pgrc_tpu import PgtcFormatError
-from pgrc_tpu.archive import decoder, encoder
-from pgrc_tpu.config import PgRCParams
+from pgrc import PgtcFormatError
+from pgrc.archive import decoder, encoder
+from pgrc.config import PgRCParams
 from tests.test_roundtrip import synth_fastq
 
 

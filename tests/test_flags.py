@@ -1,4 +1,4 @@
-"""Coverage for the historically-untested expert flags (VERDICT r4 #8):
+"""Coverage for the historically-untested expert flags:
 full quality mode (-Q), prematch accept (-l), and a leftover-heavy input
 that exercises the interleaved rescue pass at scale.
 """
@@ -7,10 +7,10 @@ import time
 import numpy as np
 import pytest
 
-from pgrc_tpu.archive import decoder, encoder
-from pgrc_tpu.config import PgRCParams
-from pgrc_tpu.core import fastq
-from pgrc_tpu.utils import dna
+from pgrc.archive import decoder, encoder
+from pgrc.config import PgRCParams
+from pgrc.core import fastq
+from pgrc.utils import dna
 
 from test_roundtrip import synth_fastq
 
@@ -115,7 +115,7 @@ def test_rescue_pass_large_set_bounded():
     """Direct cost pin on the interleaved rescue: thousands of leftover
     reads must process in seconds (vectorized over reads, looped only
     over offsets x cap)."""
-    from pgrc_tpu.align import matcher as am
+    from pgrc.align import matcher as am
 
     rng = np.random.default_rng(9)
     pg = rng.integers(0, 4, size=60_000).astype(np.uint8)

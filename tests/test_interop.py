@@ -50,8 +50,8 @@ def test_se_ord_outputs_byte_identical(tmp_path):
     assert ref_bytes == want, "reference round-trip must reproduce the input"
 
     # ours: order-preserving encode + decode
-    from pgrc_tpu.archive import decoder, encoder
-    from pgrc_tpu.config import PgRCParams
+    from pgrc.archive import decoder, encoder
+    from pgrc.config import PgRCParams
 
     our_arch = str(tmp_path / "ours.pgtc")
     stats = encoder.encode(PgRCParams(src_fastq=src, output=our_arch,
@@ -79,8 +79,8 @@ def test_se_multiset_equal_to_reference_decode(tmp_path):
     with open(ref_arch + "_out", "rb") as f:
         ref_reads = sorted(f.read().splitlines())
 
-    from pgrc_tpu.archive import decoder, encoder
-    from pgrc_tpu.config import PgRCParams
+    from pgrc.archive import decoder, encoder
+    from pgrc.config import PgRCParams
 
     our_arch = str(tmp_path / "ours.pgtc")
     encoder.encode(PgRCParams(src_fastq=src, output=our_arch))
@@ -122,8 +122,8 @@ def test_pe_pair_multiset_equal_to_reference_decode(tmp_path):
             _read_lines_bytes(src2).splitlines()))
     assert ref_pairs == want_pairs
 
-    from pgrc_tpu.archive import decoder, encoder
-    from pgrc_tpu.config import PgRCParams
+    from pgrc.archive import decoder, encoder
+    from pgrc.config import PgRCParams
 
     our_arch = str(tmp_path / "ours.pgtc")
     stats = encoder.encode(PgRCParams(src_fastq=src1, pair_fastq=src2,
@@ -152,8 +152,8 @@ def test_pe_ord_outputs_byte_identical(tmp_path):
     assert open(ref_arch + "_out_1", "rb").read() == want1
     assert open(ref_arch + "_out_2", "rb").read() == want2
 
-    from pgrc_tpu.archive import decoder, encoder
-    from pgrc_tpu.config import PgRCParams
+    from pgrc.archive import decoder, encoder
+    from pgrc.config import PgRCParams
 
     our_arch = str(tmp_path / "ours.pgtc")
     stats = encoder.encode(PgRCParams(src_fastq=src1, pair_fastq=src2,
@@ -182,8 +182,8 @@ def test_se_ord_byte_identical_200k(tmp_path):
                    check=True, capture_output=True, timeout=1800)
     assert open(ref_arch + "_out", "rb").read() == want
 
-    from pgrc_tpu.archive import decoder, encoder
-    from pgrc_tpu.config import PgRCParams
+    from pgrc.archive import decoder, encoder
+    from pgrc.config import PgRCParams
 
     our_arch = str(tmp_path / "ours.pgtc")
     stats = encoder.encode(PgRCParams(src_fastq=src, output=our_arch,

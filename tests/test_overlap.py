@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from pgrc_tpu.overlap import greedy_scs
+from pgrc.overlap import greedy_scs
 
 
 def sample_genome_reads(n_reads, read_len, genome_len, seed=0, exact=True):
@@ -120,7 +120,7 @@ def test_partitioned_sweep_matches_quality():
     the 100M enablement). Forcing tiny parts must still produce a valid,
     near-equally-linked overlap graph and an equivalent pseudogenome."""
     import numpy as np
-    from pgrc_tpu.overlap import greedy_scs as g
+    from pgrc.overlap import greedy_scs as g
 
     rng = np.random.default_rng(11)
     genome = rng.integers(0, 4, size=6000, dtype=np.uint8)

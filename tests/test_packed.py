@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from pgrc_tpu.core import packed
-from pgrc_tpu.utils import dna
+from pgrc.core import packed
+from pgrc.utils import dna
 
 
 def rand_codes(n, length, nsym=4, seed=0):

@@ -4,9 +4,9 @@ with pair association preserved."""
 import numpy as np
 import pytest
 
-from pgrc_tpu.archive import decoder, encoder
-from pgrc_tpu.config import PgRCParams
-from pgrc_tpu.utils import dna
+from pgrc.archive import decoder, encoder
+from pgrc.config import PgRCParams
+from pgrc.utils import dna
 
 
 def synth_fastq(path, n_reads, read_len, genome_len, seed, n_frac=0.02,
@@ -215,8 +215,8 @@ def test_chunked_decode_equivalence(tmp_path):
     decode in every mode (the streaming decode path is the production
     writer; decode_to_matrices is defined over it, so force multi-chunk)."""
     import numpy as np
-    from pgrc_tpu.archive import decoder, encoder
-    from pgrc_tpu.config import PgRCParams
+    from pgrc.archive import decoder, encoder
+    from pgrc.config import PgRCParams
 
     p1 = str(tmp_path / "c1.fastq")
     p2 = str(tmp_path / "c2.fastq")
@@ -244,8 +244,8 @@ def test_chunked_decode_equivalence(tmp_path):
 def test_plain_offset_representation(tmp_path):
     """-A (plain mismatch offsets, no rev-offset coding) must round-trip;
     the representation flag byte drives the decoder."""
-    from pgrc_tpu.archive import decoder, encoder
-    from pgrc_tpu.config import PgRCParams
+    from pgrc.archive import decoder, encoder
+    from pgrc.config import PgRCParams
 
     src = str(tmp_path / "a.fastq")
     synth_fastq(src, 500, 80, 3000, seed=44)
@@ -257,7 +257,7 @@ def test_plain_offset_representation(tmp_path):
 
 
 def test_analyzer(tmp_path):
-    from pgrc_tpu.core.analyzer import analyze_reads_set
+    from pgrc.core.analyzer import analyze_reads_set
 
     src = str(tmp_path / "b.fastq")
     synth_fastq(src, 200, 60, 2000, seed=45)

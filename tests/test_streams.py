@@ -3,10 +3,10 @@ import io
 import numpy as np
 import pytest
 
-from pgrc_tpu.streams import codecs, container, rangecoder, varlen_dna
-from pgrc_tpu.streams.codecs import Codec
-from pgrc_tpu.streams.container import CompressionJob, StreamReader
-from pgrc_tpu.utils import varint
+from pgrc.streams import codecs, container, rangecoder, varlen_dna
+from pgrc.streams.codecs import Codec
+from pgrc.streams.container import CompressionJob, StreamReader
+from pgrc.utils import varint
 
 
 def test_varint_scalar_roundtrip():
@@ -70,7 +70,7 @@ def test_codec_roundtrip_all():
         Codec(codecs.ZLIB),
         Codec(codecs.LZMA_CODER, codecs.LEVEL_NORMAL, 1),
         Codec(codecs.LZMA_CODER, codecs.LEVEL_NORMAL, 4),
-        Codec(codecs.ZSTD, 19),
+        Codec(codecs.RANS),
         Codec(codecs.RANGE_O0),
         Codec(codecs.RANGE_O1),
         Codec(codecs.VARLEN_DNA, 0),
@@ -90,9 +90,9 @@ def test_container_roundtrip():
     ]
     jobs = [
         CompressionJob("a", streams[0], Codec(codecs.LZMA_CODER, 2, 1)),
-        CompressionJob("b", streams[1], Codec(codecs.ZSTD)),
+        CompressionJob("b", streams[1], Codec(codecs.RANS)),
         CompressionJob("c", streams[2], Codec(codecs.LZMA_CODER, 2, 1)),
-        CompressionJob("d", streams[3], Codec(codecs.ZSTD), alternatives=[Codec(codecs.ZLIB)]),
+        CompressionJob("d", streams[3], Codec(codecs.RANS), alternatives=[Codec(codecs.ZLIB)]),
     ]
     out = io.BytesIO()
     sizes = container.write_streams(out, jobs)
@@ -108,8 +108,8 @@ def test_container_roundtrip():
 
 def test_native_rangecoder_bitcompat():
     """Native C++ coder must be bit-compatible with the pure-Python reference."""
-    from pgrc_tpu import native
-    from pgrc_tpu.streams import rangecoder as rc
+    from pgrc import native
+    from pgrc.streams import rangecoder as rc
 
     if native.get_lib() is None:
         import pytest
@@ -133,22 +133,22 @@ def test_native_rangecoder_bitcompat():
 def test_blocked_codec_roundtrip():
     import numpy as np
 
-    from pgrc_tpu.streams.codecs import BLOCKED, ZSTD, LZMA_CODER, Codec, BLOCK_SIZE
+    from pgrc.streams.codecs import BLOCKED, RANS, LZMA_CODER, Codec, BLOCK_SIZE
 
     rng = np.random.default_rng(3)
     data = rng.integers(0, 4, size=BLOCK_SIZE * 2 + 12345, dtype=np.uint8).tobytes()
-    for inner, p in ((ZSTD, 3), (LZMA_CODER, 1)):
+    for inner, p in ((RANS, 0), (LZMA_CODER, 1)):
         c = Codec(BLOCKED, inner, p)
         comp = c.compress(data)
         assert c.decompress(comp, len(data)) == data
 
 
 def test_blocked_codec_small_and_empty():
-    from pgrc_tpu.streams.codecs import BLOCKED, ZSTD, Codec
+    from pgrc.streams.codecs import BLOCKED, LZMA_CODER, RANS, Codec
 
-    c = Codec(BLOCKED, ZSTD, 3)
-    for data in (b"", b"x", b"hello" * 100):
-        assert c.decompress(c.compress(data), len(data)) == data
+    for c in (Codec(BLOCKED, RANS, 0), Codec(BLOCKED, LZMA_CODER, 1)):
+        for data in (b"", b"x", b"hello" * 100):
+            assert c.decompress(c.compress(data), len(data)) == data
 
 
 def test_pe_ord_positions_wide_roundtrip():
@@ -158,8 +158,8 @@ def test_pe_ord_positions_wide_roundtrip():
 
     import numpy as np
 
-    from pgrc_tpu.archive import order as order_enc
-    from pgrc_tpu.streams.container import StreamReader
+    from pgrc.archive import order as order_enc
+    from pgrc.streams.container import StreamReader
 
     rng = np.random.default_rng(5)
     n_pairs = 500
@@ -180,8 +180,8 @@ def test_pe_ord_positions_narrow_roundtrip():
 
     import numpy as np
 
-    from pgrc_tpu.archive import order as order_enc
-    from pgrc_tpu.streams.container import StreamReader
+    from pgrc.archive import order as order_enc
+    from pgrc.streams.container import StreamReader
 
     rng = np.random.default_rng(6)
     pos = rng.integers(0, 1 << 30, 1000).astype(np.int64)
@@ -196,8 +196,8 @@ def test_rans_roundtrip_and_native_python_compat():
     distributions, and the native C++ and pure-Python implementations
     produce IDENTICAL streams (archives must not depend on a compiler)."""
     import numpy as np
-    from pgrc_tpu import native
-    from pgrc_tpu.streams import codecs, rans_py
+    from pgrc import native
+    from pgrc.streams import codecs, rans_py
 
     rng = np.random.default_rng(3)
     cases = [
@@ -228,7 +228,7 @@ def test_rans_roundtrip_and_native_python_compat():
 def test_rans_malformed_fails_cleanly():
     import pytest as _pytest
 
-    from pgrc_tpu.streams import rans_py
+    from pgrc.streams import rans_py
 
     with _pytest.raises(ValueError):
         rans_py.decode(b"\xff\xff" + b"\x00" * 10, 5)
